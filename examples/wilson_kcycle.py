@@ -38,7 +38,7 @@ def main():
     p.add_argument("n_refine", type=int)
     p.add_argument("--tol", type=float, default=1e-10)
     p.add_argument("--cpu", action="store_true",
-                   help="force CPU + float64 (numerics parity mode)")
+                   help="run on the CPU instead of the default device")
     p.add_argument("--spectrum", action="store_true",
                    help="print the full fine + coarsened spectra "
                         "(reference n13 do_spectrum, wilson_kcycle.cpp:"
@@ -61,9 +61,10 @@ def main():
     args = p.parse_args()
 
     import jax
-    if args.cpu or jax.devices()[0].platform != "tpu":
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_enable_x64", True)
+    # The reference contract is fp64 (tol 1e-10), on any backend.
+    jax.config.update("jax_enable_x64", True)
     import numpy as np
     import jax.numpy as jnp
     from qmg_tpu.lattice import Lattice2D

@@ -1,6 +1,6 @@
-"""qmg_tpu: a TPU-native 2D lattice multigrid framework.
+"""qmg_tpu: a JAX 2D lattice multigrid framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference C++ research stack weinbe2/quantum-mg (Schwinger-model gauge
 fields, stencil operators, aggregation-based transfer, Galerkin coarse
 operators, recursive K-cycle multigrid around Krylov solvers).
@@ -19,8 +19,8 @@ Layer map (mirrors SURVEY.md section 1):
     linalg    - vector/batched-matrix primitives         (L0)
     eig       - eigensolvers (ARPACK-interface equivalent)
     reductions- timeslice reductions, wall sources
-    parallel  - device-mesh sharding (ICI halo exchange)
-    refine    - mixed-precision iterative refinement (fp64 contract on TPU)
+    parallel  - device-mesh sharding (halo exchange)
+    refine    - mixed-precision iterative refinement (fp64 contract)
 
 Double precision requires ``jax.config.update("jax_enable_x64", True)``
 before first use (numerics parity with the reference is at fp64).

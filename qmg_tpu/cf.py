@@ -1,17 +1,14 @@
 """Channels-first real-pair ("cf") arithmetic for huge fine lattices.
 
-At 2048^2 the XLA TPU backend's layout assignment places the size-2
-real/imag and parity dims of complex temporaries minor and tiles them
-T(2,128), padding every fine-lattice buffer 64x (PERF.md
-"Device-resident setup" - 42.9 GB for 1.26 GB of temps). The same
-programs at 1024^2 get sane (Y, Xh)-minor layouts; the pathology is a
-backend heuristic on complex buffers, not a property of the math.
-
-This module removes complex buffers from the program entirely: every
-field is a real array with the real/imag pair as the LEADING axis and
-the lattice (Y, Xh) axes LAST, so the default row-major layout tiles
-(8, 128) on (Y, Xh) with zero padding and the layout heuristic has
-nothing to decide. Complex arithmetic is written out over the leading
+A compiler that tiles the two minor dimensions of a buffer pads
+complex temporaries whose minor dims are the size-2 real/imag or parity
+axes or a small nc. This module removes complex buffers from the
+program entirely: every field is a real array with the real/imag pair
+as the LEADING axis and the lattice (Y, Xh) axes LAST, so the default
+row-major layout puts the large lattice axes minor and the layout
+heuristic has nothing to decide. bench.py selects it for the device
+setup at >= 2048^2; whether it pays on the GPU is not measured yet
+(ROADMAP "Speed"). Complex arithmetic is written out over the leading
 pair; complex *scalars* (solver coefficients) stay ordinary 0-d complex
 arrays - scalars never hit the tiled-layout path.
 

@@ -1,18 +1,13 @@
-"""Channels-first K-cycle solve: the TPU layout fix for the whole MG
-iteration (VERDICT r4 item 9's structural fix).
+"""Channels-first K-cycle solve: the whole MG iteration without complex
+buffers.
 
 Why this exists: every complex field in the standard solve path carries
-the geometric shape (2p, Y, X/2, nc) with nc minormost.  XLA:TPU tiles
-the last two dims (8 sublanes x 128 lanes), so nc=2 fine fields run at
-2/128 lane utilization - a compile memory dump at 2048^2 shows the
-Krylov carries at 1.6% utilization, 192 MB unpadded -> 12 GB padded -
-and one outer FGCR trip costs 68 ms against a ~14 ms unpadded replica
-(scripts/probe_outer_replica.py, PERF.md round 5).  Flattening carries
-at the solver boundary does not help: the matvec still needs geometry,
-and the flat->4-D relayout materializes the padded buffer anyway
-(measured: the MinRes smoother chain went 21 -> 363 ms).
+the geometric shape (2p, Y, X/2, nc) with nc minormost. A compiler that
+tiles the two minor dims pads such fields by the tile width over nc.
+Whether that costs anything on the GPU is not measured yet (ROADMAP
+"Speed").
 
-The cure is the same one the >=2048^2 device SETUP already uses
+The layout is the same one the >=2048^2 device SETUP already uses
 (setup_planes channels_first=True, cf.py): hold every field as a
 real-pair channels-first array (2, 2p, nc, Y, Xh).  The minor dims
 (Y, Xh) tile perfectly at every level, per-site color contractions
@@ -26,8 +21,7 @@ tests/n13_wilson_kcycle/wilson_kcycle.cpp:459):
                             betas from ONE matmul against [v, swap(v)],
                             corrections from ONE einsum with per-slot
                             2x2 rotation blocks - each pass reads the
-                            store exactly once (probe_gcr_store.py:
-                            10.1 ms/trip at 2048^2 vs 13.8 complex)
+                            store exactly once
   K-cycle preconditioner    MinRes(2, omega .85) pre/post smoothing,
                             cf transfers, recursive inner FGCR at
                             tol 0.2, direct dense coarsest
@@ -76,7 +70,7 @@ def make_cf_planes_solver(mg, tol=1e-8, max_iter=400, restart_freq=32,
     ``mg`` is the (structure-only) hierarchy, used for level lattices
     only; coefficients come from the planes ``state``.  The coarsest
     level must be direct (state carries ``cdinv``): the flagship
-    TPU configuration (KCycleConfig.coarsest_direct=True).
+    configuration (KCycleConfig.coarsest_direct=True).
     """
     n_levels = mg.get_num_levels()
     lats = [mg.get_stencil(l).lat for l in range(n_levels)]

@@ -24,7 +24,7 @@ from .operators.coarse import CoarseOperator2D
 
 # Version 3: blocked null vectors moved from the B-minor layout
 # (nvec, 2c, Yc, Xhc, B) to the b-MID layout (nvec, 2c, B, Yc, Xhc)
-# (transfer.py module docstring - TPU lane padding). Older checkpoints
+# (transfer.py module docstring). Older checkpoints
 # are converted on load.
 FORMAT_VERSION = 3
 

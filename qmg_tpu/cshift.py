@@ -1,6 +1,6 @@
 """Periodic nearest-neighbor shifts on eo-packed fields.
 
-TPU-native counterpart of the reference cshift layer
+JAX counterpart of the reference cshift layer
 (reference: cshift/cshift_2d.h:45-236), which is the reference's entire
 communication story (its periodic-wrap loops are marked "Becomes MPI",
 cshift/cshift_2d.h:72,89,101,114).
@@ -19,7 +19,7 @@ selects - no gathers, no halo indexing:
     reference hand-codes at cshift/cshift_2d.h:60-93).
 
 When the lattice is sharded over a device mesh (parallel.py), XLA lowers
-the wrapped rows/columns of these rolls to collective-permutes over ICI.
+the wrapped rows/columns of these rolls to collective-permutes.
 """
 
 from __future__ import annotations

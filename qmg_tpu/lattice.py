@@ -1,6 +1,6 @@
 """Lattice geometry and even-odd index algebra.
 
-TPU-native counterpart of the reference ``Lattice2D``
+JAX counterpart of the reference ``Lattice2D``
 (reference: lattice/lattice.h:12-396).
 
 The reference stores every field as a flat ``complex<double>*`` over an

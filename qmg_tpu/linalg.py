@@ -1,6 +1,6 @@
 """Vector and batched per-site matrix primitives.
 
-TPU-native counterpart of the quantum-linalg BLAS surface the reference
+JAX counterpart of the quantum-linalg BLAS surface the reference
 depends on (reconstructed from call sites; see SURVEY.md section 2.9:
 blas/generic_vector.h, blas/generic_local_matrix.h). Most entries are thin
 jnp one-liners; they exist so the rest of the framework reads like the
@@ -88,11 +88,11 @@ def site_matvec(mat, vec):
     Equivalent of cMATxy; cMATxpy is site_matvec_accum.
 
     Carries a hand-written jax.vmap batching rule: the default rule
-    turns the batched per-site matvec into a dot_general that XLA
-    re-lowers as convolutions, measured 10-15x off bandwidth on TPU
-    (PERF.md round 4, "batched regression LOCALIZED"), while the
-    unrolled elementwise form batches at ~0 marginal cost. The
-    unbatched program is byte-identical to the plain einsum.
+    turns the batched per-site matvec into a dot_general that XLA may
+    re-lower as convolutions, while the unrolled elementwise form
+    batches at ~0 marginal cost; which wins on the GPU is not measured
+    yet (ROADMAP "Speed"). The unbatched program is byte-identical to
+    the plain einsum.
     """
     return jnp.einsum("...ij,...j->...i", mat, vec)
 
@@ -122,11 +122,8 @@ def stacked_site_matvec(mats, nbrs):
     nbrs[s, ..., j] — the single stacked contraction the stencil apply
     uses for clover + 4 hopping (+ twolink/corner) terms.
 
-    Same hand-written batching rule rationale as site_matvec: under
-    jax.vmap the default batched dot lowers to convolutions on TPU
-    (~10-15x off bandwidth); the unrolled elementwise form batches at
-    ~0 marginal cost (PERF.md round 4). Unbatched callers get the
-    byte-identical stacked einsum.
+    Same hand-written batching rule rationale as site_matvec. Unbatched
+    callers get the byte-identical stacked einsum.
     """
     return jnp.einsum("s...ij,s...j->...i", mats, nbrs)
 

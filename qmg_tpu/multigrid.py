@@ -1,6 +1,6 @@
 """Multigrid hierarchy: the level stack.
 
-TPU-native counterpart of reference multigrid/multigrid.h:54-600.
+JAX counterpart of reference multigrid/multigrid.h:54-600.
 
 Holds parallel per-level lists of (lattice, transfer, stencil, saved
 global null vectors); supports push/pop/update of levels and applying a

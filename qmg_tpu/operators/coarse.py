@@ -1,6 +1,6 @@
 """Galerkin coarse operator built by probing.
 
-TPU-native counterpart of reference operators/coarse.h:29-897.
+JAX counterpart of reference operators/coarse.h:29-897.
 
 The reference probes the fine operator with indicator vectors: for each
 coarse color (and parity, and direction) it sets 1 on coarse sites,

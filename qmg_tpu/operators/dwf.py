@@ -1,6 +1,6 @@
 """Shamir domain-wall operator as a 2D stencil with Nc = 2*Ls.
 
-TPU-native counterpart of reference operators/dwf.h:19-293.
+JAX counterpart of reference operators/dwf.h:19-293.
 
 Structure (decoded from the strided fills at dwf.h:180-237): per site the
 (2Ls x 2Ls) clover is

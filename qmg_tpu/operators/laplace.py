@@ -1,6 +1,6 @@
 """Free and U(1)-gauged 2D Laplace operators.
 
-TPU-native counterparts of the reference FreeLaplace2D
+JAX counterparts of the reference FreeLaplace2D
 (tests/n02_free_laplace_test/free_laplace.h:18-42) and GaugedLaplace2D
 (operators/gaugedlaplace.h:18-213).
 """

@@ -1,6 +1,6 @@
 """2D staggered Dslash, Nc=1.
 
-TPU-native counterpart of reference operators/staggered.h:21-259.
+JAX counterpart of reference operators/staggered.h:21-259.
 Hopping-only stencil (mass carried in ``shift``): hopping_{+-x} =
 -+ U_x / conj-pulled, hopping_{+-y} with the eta_y(x) = (-1)^x phase
 (reference staggered_set_eta_y, :253-259).

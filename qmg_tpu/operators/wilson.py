@@ -1,6 +1,6 @@
 """2D Wilson-Dirac operator, Nc=2 (spin (x) U(1)).
 
-TPU-native counterpart of reference operators/wilson.h:19-229.
+JAX counterpart of reference operators/wilson.h:19-229.
 
 Spin structure per direction (reference update_links, :179-209)::
 
@@ -52,9 +52,8 @@ def _wilson_coeff_arrays(lat: Lattice2D, gauge, w: float, dtype):
 
 
 def wilson_coeffs_numpy(lat: Lattice2D, gauge_eo, w: float = 1.0):
-    """Host-side (pure NumPy) Wilson coefficient build - for TPU backends
-    that reject eager complex device ops. Returns (clover, hopping)
-    complex128 ndarrays in the standard layouts."""
+    """Host-side (pure NumPy) Wilson coefficient build. Returns (clover,
+    hopping) complex128 ndarrays in the standard layouts."""
     import numpy as np
     from ..lattice import eo_pack, eo_unpack
     g = np.stack([eo_unpack(np.asarray(gauge_eo[mu]), lat.with_nc(1))

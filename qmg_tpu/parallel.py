@@ -1,13 +1,14 @@
-"""Device-mesh sharding: domain decomposition over TPU ICI.
+"""Device-mesh sharding: domain decomposition over the devices' links.
 
 The reference is single-process; its halo-exchange story is the "Becomes
 MPI" markers in cshift (cshift/cshift_2d.h:72,89,101,114 - never written).
-Here distribution is first-class and TPU-native (SURVEY.md 2.10):
+Here distribution is first-class (SURVEY.md 2.10):
 
   * The lattice's (Y, Xh) axes shard over a 2D jax Mesh ("y", "x").
   * cshift stays written as rolls; under jit with sharded operands XLA's
     SPMD partitioner lowers the wrapped rows/columns to collective
-    permutes over ICI - the halo exchange the reference never wrote.
+    permutes (NCCL on GPUs) - the halo exchange the reference never
+    wrote.
   * Global reductions (Krylov dots/norms) become all-reduces.
   * Coarse MG levels shrink below the shard grid; the intended operating
     mode replicates them (gather-to-replicated crossover), mirroring the

@@ -1,6 +1,6 @@
 """Timeslice reductions and wall sources (measurement support).
 
-TPU-native counterpart of reference reductions/reductions.h:24-162.
+JAX counterpart of reference reductions/reductions.h:24-162.
 
 On the (2, Y, Xh, nc) eo layout, a "timeslice" (fixed y) reduction is
 simply a sum over the (parity, xh, color) axes - the reference has to

@@ -113,10 +113,10 @@ class KCycleConfig:
     precond_coarsen_rbjacobi: bool = False
     build_extra: int = 0
     free_null_vectors: bool = False  # geometric per-spin constants (do_free)
-    # TPU-native: invert the (tiny) coarsest operator at setup and solve
+    # Extension: invert the (tiny) coarsest operator at setup and solve
     # it with one dense matvec per K-cycle visit (stateful.py).
     coarsest_direct: bool = False
-    # TPU-native fixed-schedule mode: if > 0, every intermediate K-cycle
+    # Fixed-schedule mode: if > 0, every intermediate K-cycle
     # Krylov runs EXACTLY this many GCR iterations instead of stopping
     # at inner_tol (flexible GCR tolerates any inner variation). With a
     # direct coarsest this removes every data-dependent inner stopping

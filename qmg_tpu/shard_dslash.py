@@ -3,9 +3,10 @@
 The jit auto-sharding path (parallel.py) lets XLA's SPMD partitioner
 derive the collectives from jnp.roll. This module is the hand-scheduled
 production alternative: the lattice block lives per-device, boundary
-slices move over ICI with lax.ppermute, and the interior math is the
-same stencil apply - the TPU-native realization of the halo exchange the
-reference marks "Becomes MPI" (cshift/cshift_2d.h:72,89,101,114).
+slices move between devices with lax.ppermute (NCCL on GPUs), and the
+interior math is the same stencil apply - the JAX realization of the
+halo exchange the reference marks "Becomes MPI"
+(cshift/cshift_2d.h:72,89,101,114).
 
 The (Y, Xh) axes shard over a ("y", "x") mesh; local extents must keep
 Y_loc even (so global row parity equals local row parity) and the
@@ -14,14 +15,10 @@ blocked MG transfer aligned. Works for any distance-1 stencil.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.7 location
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .lattice import DIR_XP1, DIR_YP1, DIR_XM1, DIR_YM1
 from .stencil import StencilCoeffs, apply_shift
@@ -30,7 +27,7 @@ from . import linalg
 
 def _halo_roll(a, shift: int, axis: int, axis_name: str, n_shards: int):
     """Global periodic roll of a sharded axis: local roll + boundary
-    slice exchanged with the ring neighbor over ICI."""
+    slice exchanged with the ring neighbor."""
     rolled = jnp.roll(a, shift, axis=axis)
     if n_shards == 1:
         return rolled
@@ -128,80 +125,5 @@ def make_sharded_dslash(coeffs: StencilCoeffs, mesh: Mesh):
 
     def apply_fn(x):
         return sharded(coeffs.clover, coeffs.hopping, x)
-
-    return apply_fn
-
-
-def make_sharded_pallas_wilson(coeffs: StencilCoeffs, mesh: Mesh,
-                               mass: float, w: float = 1.0,
-                               tile: int = 32, interpret: bool = False):
-    """The rank-1 phase-streaming Wilson kernel inside shard_map
-    (VERDICT r2 item 3): per-shard fused Pallas Dslash on the local
-    y-slab, with 8-row y halos exchanged over ICI by ppermute feeding
-    the kernel's +-y window DMAs through a halo frame
-    (pallas_wilson.make_pallas_wilson_rank1_shaped(halo_frame=True)).
-
-    Requires an x-unsharded ("y"-only) mesh: the kernel streams full
-    rows along the lane axis, so +-x pulls stay intra-shard lane rolls
-    (the natural decomposition for this kernel - X is the vector axis).
-    ``mass``/``w`` are the operator's static scalars (compile-time
-    constants of the kernel, as in the single-chip path).
-    """
-    lat = coeffs.lat
-    ny, nx = mesh.devices.shape
-    if nx != 1:
-        raise ValueError(
-            "sharded pallas wilson needs an x-unsharded mesh (ny, 1): "
-            "the kernel streams full rows on the lane axis; shard y only")
-    if lat.nc != 2:
-        raise ValueError("sharded pallas wilson needs a Wilson fine "
-                         f"operator (nc=2), got nc={lat.nc}")
-    if lat.y_len % ny:
-        raise ValueError(f"Y={lat.y_len} does not tile {ny} y-shards")
-    y_loc = lat.y_len // ny
-    if y_loc % 8:
-        raise ValueError(
-            f"local row count {y_loc} must be a multiple of 8 (the halo "
-            "window DMA granule); use fewer y-shards")
-    from .pallas_wilson import (make_pallas_wilson_rank1_shaped,
-                                wilson_phases_from_coeffs)
-    kernel = make_pallas_wilson_rank1_shaped(
-        y_loc, lat.xh, w, mass, tile=tile, interpret=interpret,
-        halo_frame=True)
-    phases = wilson_phases_from_coeffs(coeffs, w)
-    from .pallas_dslash import x_to_planes, x_from_planes
-
-    up_perm = [(i, (i + 1) % ny) for i in range(ny)]
-    dn_perm = [(i, (i - 1) % ny) for i in range(ny)]
-
-    def local_apply(ph_loc, xp_loc):
-        # Halo frame: rows [0, 8) = the previous shard's LAST 8 rows
-        # (global y0-8..y0), rows [y_loc+8, y_loc+16) = the next shard's
-        # first 8 - the ICI realization of the kernel's periodic window.
-        if ny > 1:
-            top = lax.ppermute(xp_loc[:, :, :, -8:, :], "y", up_perm)
-            bot = lax.ppermute(xp_loc[:, :, :, :8, :], "y", dn_perm)
-        else:
-            top = xp_loc[:, :, :, -8:, :]
-            bot = xp_loc[:, :, :, :8, :]
-        frame = jnp.concatenate([top, xp_loc, bot], axis=3)
-        return kernel(ph_loc, frame)
-
-    pspec = P(None, None, None, "y", None)
-    # check_vma=False: pallas_call does not annotate its outputs with
-    # varying-mesh-axes metadata, so shard_map's vma check (the
-    # replication checker) rejects any kernel-in-shard_map composition.
-    # Correctness is covered by the trajectory/equivalence tests.
-    try:
-        sharded = shard_map(local_apply, mesh=mesh,
-                            in_specs=(pspec, pspec), out_specs=pspec,
-                            check_vma=False)
-    except TypeError:  # older shard_map signature
-        sharded = shard_map(local_apply, mesh=mesh,
-                            in_specs=(pspec, pspec), out_specs=pspec)
-
-    def apply_fn(x):
-        out = sharded(phases, x_to_planes(x))
-        return x_from_planes(out).astype(x.dtype)
 
     return apply_fn

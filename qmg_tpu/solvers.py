@@ -1,6 +1,6 @@
 """Krylov solvers as jittable `lax.while_loop` kernels.
 
-TPU-native counterpart of the quantum-linalg inverter family the reference
+JAX counterpart of the quantum-linalg inverter family the reference
 links against (reconstructed from call sites; SURVEY.md section 2.9):
 minv_vector_{cg, cg_restart, gcr, gcr_restart, bicgstab, bicgstab_l,
 minres, richardson, tfqmr, gcr_var_precond, gcr_var_precond_restart}.
@@ -22,7 +22,6 @@ coarse_tol * rnorm/rnorm_prep rescale) are traced scalars.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import enum
 from typing import NamedTuple
@@ -34,19 +33,17 @@ import jax.numpy as jnp
 from .linalg import vdot, norm2sq
 
 # Trace-time cap on the flat (R, n) GCR direction store (see _gcr_impl).
-# Sized to half a v5e chip's HBM: a legitimate restart_freq=32 store at
-# 2048^2 is 4 GiB and must pass; the restart_freq=-1 hazard (R =
-# max_iter = 1000 at production sizes, tens-to-thousands of GiB) must
-# not. Under a mesh the store shards with the fields, so the effective
-# per-chip footprint is store/n_devices - raise the limit for large
-# multi-chip runs if needed.
+# A legitimate restart_freq=32 store at 2048^2 is 4 GiB and must pass;
+# the restart_freq=-1 hazard (R = max_iter = 1000 at production sizes,
+# tens-to-thousands of GiB) must not. Under a mesh the store shards with
+# the fields, so the effective per-device footprint is store/n_devices -
+# raise the limit for large multi-device runs if needed.
 GCR_STORE_LIMIT_BYTES = 8 * 1024 ** 3
 
 __all__ = [
     "SolveResult", "Verbosity", "VerboseMG", "cg", "cg_restart", "gcr",
     "gcr_restart", "bicgstab", "bicgstab_l", "minres", "richardson",
     "tfqmr", "gcr_var_precond", "gcr_var_precond_restart",
-    "flat_carries",
 ]
 
 
@@ -105,71 +102,6 @@ def _i32(v):
 
 
 # ---------------------------------------------------------------------------
-# Flat working vectors (TPU layout fix).
-#
-# Krylov carries held in the field's geometric shape (p, Y, X/2, nc)
-# are lane-padded by XLA:TPU: with nc=2 minormost the padded footprint
-# is up to 64x the data (measured in a 2048^2 compile dump: HLO temps
-# at 1.6% utilization, 192 MB unpadded -> 12 GB padded), and every
-# iteration pays relayouts between the padded 4-D carries and the flat
-# (R, n) direction stores.  One real outer-FGCR trip at 2048^2 costs
-# 68 ms against a ~14 ms all-flat replica (scripts/probe_outer_replica
-# .py / probe_gcr_store.py, PERF.md round 5).  Flattening at the
-# solver boundary alone does NOT cure it: every matvec still needs the
-# geometric shape, and the flat->4-D relayout at that boundary
-# materializes the padded buffer anyway (measured: the 2048^2 MinRes
-# smoother chain went 21 -> 363 ms with flat carries + 4-D matvec).
-# It is therefore OFF by default and kept as an opt-in for matvecs
-# that are themselves shape-agnostic (elementwise / flat operators),
-# where it delivers the full 4.8x (14.3 vs 68 ms/trip).  The real cure
-# for stencil operators is the channels-first solve path (cf_solve.py)
-# whose fields are (ri, nc, Y, X/2) with perfectly-tiled minor dims.
-#
-# Sharded solves must never flatten: collapsing a mesh-sharded 4-D
-# field to 1-D is inexpressible for the SPMD partitioner and would
-# force an all-gather.
-# ---------------------------------------------------------------------------
-
-_FLAT_CARRIES = [False]
-
-
-@contextlib.contextmanager
-def flat_carries(enabled: bool):
-    """Enable/disable the solvers' flat-carry layout for the duration
-    of a trace (thread-unsafe module state, matching jax's own config
-    idiom; tracing is single-threaded per call)."""
-    _FLAT_CARRIES.append(bool(enabled))
-    try:
-        yield
-    finally:
-        _FLAT_CARRIES.pop()
-
-
-def _flatten_system(matvec, b, x0, precond=None):
-    """Flat view of a linear system: returns (matvec', b', x0',
-    precond', unflatten) where the primed pieces operate on (n,)
-    vectors and ``unflatten`` restores the caller's field shape."""
-    shape = b.shape
-    if len(shape) <= 1 or not _FLAT_CARRIES[-1]:
-        return matvec, b, x0, precond, (lambda x: x)
-    n = int(np.prod(shape))
-
-    def mv(vf):
-        return matvec(vf.reshape(shape)).reshape(n)
-
-    if precond is None:
-        pc = None
-    else:
-        def pc(rf, carry):
-            z, carry = precond(rf.reshape(shape), carry)
-            return z.reshape(n), carry
-
-    bf = b.reshape(n)
-    xf = None if x0 is None else x0.reshape(n)
-    return mv, bf, xf, pc, (lambda x: x.reshape(shape))
-
-
-# ---------------------------------------------------------------------------
 # Conjugate gradient (for hermitian positive definite ops).
 # ---------------------------------------------------------------------------
 
@@ -194,7 +126,6 @@ def _verbose_summary(verbose, name, iters, rsq, bsq):
 
 def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
        verbose=None) -> SolveResult:
-    matvec, b, x0, _, _unflat = _flatten_system(matvec, b, x0)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = jnp.real(tol) ** 2 * bsq
@@ -224,14 +155,13 @@ def cg(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
     x, r, p, rsq, k = jax.lax.while_loop(
         cond, body, (x0, r0, p0, norm2sq(r0), _i32(0)))
     _verbose_summary(verbose, "cg", k, rsq, bsq)
-    return SolveResult(_unflat(x), k, rsq, rsq <= target, k + 1)
+    return SolveResult(x, k, rsq, rsq <= target, k + 1)
 
 
 def cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
                restart_freq: int = 32) -> SolveResult:
     """CG with hard restarts every restart_freq iterations
     (quantum-linalg minv_vector_cg_restart)."""
-    matvec, b, x0, _, _unflat = _flatten_system(matvec, b, x0)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = jnp.real(tol) ** 2 * bsq
@@ -249,7 +179,7 @@ def cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
     r0sq = norm2sq(b - matvec(x0))
     x, rsq, k, ops = jax.lax.while_loop(
         outer_cond, outer_body, (x0, r0sq, _i32(0), _i32(1)))
-    return SolveResult(_unflat(x), k, rsq, rsq <= target, ops)
+    return SolveResult(x, k, rsq, rsq <= target, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +191,6 @@ def cg_restart(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
 def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
               precond=None, precond_carry=None, verbose=None,
               fixed_trips: bool = False):
-    matvec, b, x0, precond, _unflat = _flatten_system(
-        matvec, b, x0, precond)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = jnp.real(tol) ** 2 * bsq
@@ -275,12 +203,9 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
 
     r0 = b - matvec(x0)
 
-    # Direction store is FLAT (R, n): the multi-axis einsum form
-    # ("i...,...->i" over the 4 trailing field axes) lowers to a
-    # relayout-heavy reduction on TPU that dominated whole MG solves
-    # (measured: restart 32 -> 16 cut a 256^2 K-cycle solve 278 -> 190 ms
-    # at the identical 10-iteration trajectory). Flat (R, n) projections
-    # are plain matvecs.
+    # Direction store is FLAT (R, n), so the projections are plain
+    # matvecs rather than multi-axis einsum reductions
+    # ("i...,...->i" over the 4 trailing field axes).
     n = int(np.prod(b.shape))
     # Guard the direction store: unrestarted GCR (restart_freq=-1 routes
     # here with restart_len=max_iter) allocates 2*(R, n) complex arrays;
@@ -344,8 +269,8 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
         # noise floor (e.g. a c64 solve asked for tol 1e-10), the
         # orthogonalized direction collapses and apsq_new can UNDERFLOW
         # to exactly 0 in f32 - alpha would be 0/0 = NaN and poison x
-        # (observed: the 512^2 adaptive pass-stage smoothing on the
-        # TPU, PERF.md round 4). A broken-down iteration becomes a
+        # (observed in the 512^2 adaptive pass-stage smoothing). A
+        # broken-down iteration becomes a
         # no-op (alpha 0, dummy apsq slot) instead; `converged` still
         # reports the tolerance test honestly.
         broke = ~(apsq_new > jnp.asarray(np.finfo(rdt).tiny, rdt))
@@ -367,7 +292,7 @@ def _gcr_impl(matvec, b, x0, max_iter: int, tol, restart_len: int,
     out = jax.lax.while_loop(cond, body, state0)
     x, r, rsq, ps, aps, apsq, j, k, ops, carry = out
     _verbose_summary(verbose, "gcr", k, rsq, bsq)
-    return SolveResult(_unflat(x), k, rsq, rsq <= target, ops), carry
+    return SolveResult(x, k, rsq, rsq <= target, ops), carry
 
 
 def gcr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
@@ -413,7 +338,6 @@ def gcr_var_precond_restart(matvec, b, precond, x0=None,
 
 def bicgstab(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
              ) -> SolveResult:
-    matvec, b, x0, _, _unflat = _flatten_system(matvec, b, x0)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = jnp.real(tol) ** 2 * bsq
@@ -445,7 +369,7 @@ def bicgstab(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8
               norm2sq(r0), _i32(0), _i32(1))
     x, r, p, v, rho, alpha, omega, rsq, k, ops = jax.lax.while_loop(
         cond, body, state0)
-    return SolveResult(_unflat(x), k, rsq, rsq <= target, ops)
+    return SolveResult(x, k, rsq, rsq <= target, ops)
 
 
 def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
@@ -457,7 +381,6 @@ def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
     ``max_iter`` counts l-cycles x l (matching the reference's use of 500
     as a generous cap); each l-cycle costs 2l matvecs.
     """
-    matvec, b, x0, _, _unflat = _flatten_system(matvec, b, x0)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = jnp.real(tol) ** 2 * bsq
@@ -532,7 +455,7 @@ def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
               norm2sq(r0), _i32(0), _i32(1))
     x, rs, us, rho0, alpha, omega, rsq, k, ops = jax.lax.while_loop(
         cond, body, state0)
-    return SolveResult(_unflat(x), k * l, rsq, rsq <= target, ops)
+    return SolveResult(x, k * l, rsq, rsq <= target, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -543,7 +466,6 @@ def bicgstab_l(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8,
 
 def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
            omega: float = 1.0) -> SolveResult:
-    matvec, b, x0, _, _unflat = _flatten_system(matvec, b, x0)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = jnp.real(tol) ** 2 * bsq
@@ -579,10 +501,10 @@ def minres(matvec, b, x0=None, max_iter: int = 2, tol=1e-15,
         for _ in range(max_iter):
             s = body(s)
         x, r, rsq, k, ops = s
-        return SolveResult(_unflat(x), k, rsq, rsq <= target, ops)
+        return SolveResult(x, k, rsq, rsq <= target, ops)
     x, r, rsq, k, ops = jax.lax.while_loop(
         cond, body, (x0, r0, norm2sq(r0), _i32(0), _i32(1)))
-    return SolveResult(_unflat(x), k, rsq, rsq <= target, ops)
+    return SolveResult(x, k, rsq, rsq <= target, ops)
 
 
 def richardson(matvec, b, x0=None, max_iter: int = 10, tol=1e-10,
@@ -591,7 +513,6 @@ def richardson(matvec, b, x0=None, max_iter: int = 10, tol=1e-10,
     residual every ``blocksize`` iterations (quantum-linalg
     minv_vector_richardson; used by the adaptive setup,
     tests/n22_wilson_kcycle_adaptive/wilson_kcycle.cpp:289)."""
-    matvec, b, x0, _, _unflat = _flatten_system(matvec, b, x0)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     target = jnp.real(tol) ** 2 * bsq
@@ -617,7 +538,7 @@ def richardson(matvec, b, x0=None, max_iter: int = 10, tol=1e-10,
 
     x, r, rsq, k, ops = jax.lax.while_loop(
         cond, body, (x0, r0, norm2sq(r0), _i32(0), _i32(1)))
-    return SolveResult(_unflat(x), k, rsq, rsq <= target, ops)
+    return SolveResult(x, k, rsq, rsq <= target, ops)
 
 
 # ---------------------------------------------------------------------------
@@ -625,7 +546,6 @@ def richardson(matvec, b, x0=None, max_iter: int = 10, tol=1e-10,
 # ---------------------------------------------------------------------------
 
 def tfqmr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8) -> SolveResult:
-    matvec, b, x0, _, _unflat = _flatten_system(matvec, b, x0)
     x0 = jnp.zeros_like(b) if x0 is None else x0
     bsq = norm2sq(b)
     rdt = _real_dtype(b)
@@ -682,4 +602,4 @@ def tfqmr(matvec, b, x0=None, max_iter: int = 1000, tol=1e-8) -> SolveResult:
               _i32(2))
     out = jax.lax.while_loop(cond, body, state0)
     x, w, u, au, v, d, tau, theta, eta, rho, k, ops = out
-    return SolveResult(_unflat(x), k, tau * tau, tau * tau <= target, ops)
+    return SolveResult(x, k, tau * tau, tau * tau <= target, ops)

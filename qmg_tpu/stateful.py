@@ -1,7 +1,7 @@
 """Stateful multigrid: per-level solve configs, Dslash trackers, coarsest
 deflation, and the recursive K-cycle preconditioner.
 
-TPU-native counterpart of reference multigrid/stateful_multigrid.h:43-1060.
+JAX counterpart of reference multigrid/stateful_multigrid.h:43-1060.
 
 The reference's static ``mg_preconditioner`` (:734-1060) becomes a
 function *factory*: the level recursion is static (n_refine <= ~4), so
@@ -79,8 +79,8 @@ class CoarsestSolveMG:
     coarsest_restart_freq: int = 32
     deflate: bool = True
     normal_shift: float = 0.0
-    # TPU-native extension (no reference counterpart): solve the coarsest
-    # level with a precomputed dense inverse - one MXU matvec instead of
+    # Extension (no reference counterpart): solve the coarsest level
+    # with a precomputed dense inverse - one dense matvec instead of
     # hundreds of latency-bound tiny stencil applies per K-cycle visit.
     # Enable via prepare_direct_coarsest().
     direct: bool = False
@@ -247,7 +247,7 @@ class StatefulMultigridMG(MultigridMG):
             for i, v in enumerate(np.asarray(vals)):
                 print(f"[QMG-COARSEST-EVALS]: {i} {v.real}")
 
-    # --- direct coarsest solve (TPU-native; no reference counterpart) ---
+    # --- direct coarsest solve (no reference counterpart) ---
     def prepare_direct_coarsest(self):
         """Materialize and invert the coarsest operator (for the configured
         coarsest_stencil_app), enabling a one-matmul coarsest solve.
@@ -255,7 +255,7 @@ class StatefulMultigridMG(MultigridMG):
         The coarsest level of a shipped hierarchy is tiny (e.g. 4^2 x nc8
         = 128-dim); its iterative solve is hundreds of latency-bound ops
         per K-cycle visit on an accelerator. A dense 128^2 inverse apply
-        is a single MXU matvec - exact, so it also improves K-cycle
+        is a single dense matvec - exact, so it also improves K-cycle
         quality over the reference's tol-0.2 CGNR."""
         from . import eig
         cs = self.coarsest_solve
@@ -439,7 +439,7 @@ class StatefulMultigridMG(MultigridMG):
             # --- coarse solve (reference :885-998) ---
             if (level == n_levels - 2 and self.coarsest_solve.direct
                     and self.coarsest_dinv is not None):
-                # Direct dense solve: one matvec on the MXU.
+                # Direct dense solve: one dense matvec.
                 dinv = self.coarsest_dinv.astype(r_coarse_prep.dtype)
                 e_coarse = (dinv @ r_coarse_prep.reshape(-1)).reshape(
                     r_coarse_prep.shape)

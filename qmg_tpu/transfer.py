@@ -1,6 +1,6 @@
 """Aggregation-based transfer operators (prolong / restrict).
 
-TPU-native counterpart of reference transfer/transfer.h:42-818.
+JAX counterpart of reference transfer/transfer.h:42-818.
 
 The reference builds a one-to-many ``coarse_map`` (sorted fine cv indices
 per coarse site, transfer/transfer.h:410-448) and loops over it. Here the
@@ -14,13 +14,10 @@ reorders a fine field (2, Y, Xh, nc) into blocked form
 are einsums against the blocked null-vector tensor NV, contracted over
 the b axis with the coarse lattice (Yc, Xhc) axes kept MINOR.
 
-Layout note (the r3 -> r4 change): the blocked b axis sits in the
-MIDDLE, not minor. On TPU the minor-most axis maps to the 128-wide
-lane dimension; a B-minor layout (B = 32 at 4x4 Wilson blocking)
-lane-pads every nvb buffer and blocked temporary 4x - measured ~4 GiB
-of padded copies in the 2048^2 solve (PERF.md "Two HBM fit fixes").
-With (Yc, Xhc) minor the default row-major layout tiles (8, 128) with
-zero padding, matching the channels-first setup layouts (cf.py).
+Layout note: the blocked b axis sits in the MIDDLE, not minor, so the
+large coarse lattice axes (Yc, Xhc) are minor, matching the
+channels-first setup layouts (cf.py); a B-minor layout (B = 32 at 4x4
+Wilson blocking) is padded by compilers that tile the minor dims.
 
 Block (bi-)orthonormalization follows the reference's Osborn-style
 restrict/prolong Gram-Schmidt (transfer/transfer.h:514-769) vectorized
@@ -120,7 +117,7 @@ class TransferMG:
         self._init_geometry()
 
         # Blocked null vectors: (nvec, 2c, B, Yc, Xhc) - b MID, lattice
-        # axes minor (TPU lane padding; module docstring).
+        # axes minor (module docstring).
         nvb = self._to_blocked_batch(nv)
         self.block_cholesky = None  # (2c,Yc,Xhc,nvec,nvec), [i,j]=row i col j
         self.block_L = None
@@ -202,7 +199,7 @@ class TransferMG:
         each block (parity-major, then y, then xh, then color) - the same
         ordering as the reference's merge-sorted coarse_map
         (transfer/transfer.h:440). The b axis sits MID, not minor: see
-        the module docstring's TPU lane-padding note.
+        the module docstring's layout note.
         """
         if not self._use_reshape:
             return fine.reshape(-1)[self._perm]

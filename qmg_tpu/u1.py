@@ -2,7 +2,7 @@
 APE smearing, observables (plaquette, topological charge, non-compact
 action), instantons, and the non-compact heatbath.
 
-TPU-native counterpart of reference u1/u1_utils.h:38-757.
+JAX counterpart of reference u1/u1_utils.h:38-757.
 
 Gauge fields here are eo-packed complex arrays of shape (2, 2, Y, X/2):
 (mu in {+x,+y}, parity, y, xh) - the reference's LatticeGauge ordering

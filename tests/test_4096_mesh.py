@@ -1,13 +1,12 @@
-"""4096^2 on the virtual 8-device mesh: the first lattice size a single
-v5e chip cannot hold (fine c64 vector 268 MB, setup working set > 16 GB
-HBM at production nvec), so it MUST go through the mesh-sharded path.
+"""4096^2 on the virtual 8-device mesh through the mesh-sharded path
+(fine c64 vector 268 MB; the setup working set at production nvec is
+tens of GB).
 
-This is the scaling proof VERDICT r3 item 5 asks for: mesh-sharded
-channels-first device setup + mesh-sharded planes solve at 4096^2 on
->= 4 virtual CPU devices — correctness (finite state, residual
-contraction) + compile (the SPMD partitioner accepts the shardings).
-The real-chip throughput proxy is bench.py's 2048^2 plane (one 4096^2
-shard per chip on a 2x2 mesh); PERF.md "4096^2 mesh" records both.
+The scaling proof: mesh-sharded channels-first device setup +
+mesh-sharded planes solve at 4096^2 on >= 4 virtual CPU devices —
+correctness (finite state, residual contraction) + compile (the SPMD
+partitioner accepts the shardings). On real cards each shard of a
+4096^2 lattice on a 2x2 mesh is a 2048^2 plane.
 
 Reference scale anchor: the largest config the reference ships is
 128^2 (/root/reference/tests/common_cfgs_u1); its MPI decomposition
@@ -62,7 +61,7 @@ def test_4096_mesh_setup_and_solve():
     seeds = gauss_seed_planes(lat, cfg, QMGRandom(999))
 
     # Mesh-sharded channels-first device setup (the production >=2048^2
-    # path) at the TPU-facing c64 precision.
+    # path) at the device-facing c64 precision.
     setup_s = make_kcycle_setup_planes(lat, cfg, MASS, dtype=jnp.complex64,
                                        mesh=mesh, channels_first=True)
     state = setup_s(gauge_p, *seeds)

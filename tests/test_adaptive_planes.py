@@ -1,6 +1,6 @@
 """Device-resident adaptive (n22) setup vs the eager path.
 
-VERDICT r2 item 5: setup.adaptive_pass/build_coarse_by_restrict ran
+setup.adaptive_pass/build_coarse_by_restrict ran
 eagerly on host only; setup_planes.make_adaptive_setup_planes traces the
 same flow into per-stage jits. The 16^2 oracle here compares the traced
 state against the eager build at matched seeds and c64 precision - the

@@ -47,7 +47,7 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_checkpoint_asymmetric_transfer_and_decomp(tmp_path):
     """Asymmetric (R != P^dagger) transfers and saved block decompositions
     must round-trip: round 1 silently dropped them, turning the restored
-    hierarchy into a different preconditioner (ADVICE.md)."""
+    hierarchy into a different preconditioner."""
     import jax
     from qmg_tpu.transfer import TransferMG, DoublingType
     from qmg_tpu.stateful import (StatefulMultigridMG, LevelSolveMG,

@@ -1,7 +1,7 @@
-"""Direct (dense-inverse) coarsest solve - a TPU-native extension: the
-coarsest level of a shipped hierarchy is tiny (4^2 x nc8 = 128-dim), so
-its per-visit iterative CGNR (~100 latency-bound ops) is replaced by one
-precomputed-inverse matvec on the MXU. Exact coarsest solves also cannot
+"""Direct (dense-inverse) coarsest solve - an extension: the coarsest
+level of a shipped hierarchy is tiny (4^2 x nc8 = 128-dim), so its
+per-visit iterative CGNR (~100 latency-bound ops) is replaced by one
+precomputed-inverse matvec. Exact coarsest solves also cannot
 degrade K-cycle quality vs the reference's tol-0.2 solve."""
 
 import os
@@ -54,7 +54,7 @@ def test_direct_coarsest_converges_no_worse():
 
 
 def test_direct_coarsest_checkpoint_and_planes(tmp_path):
-    """The dense inverse rides checkpoints and the TPU planes boundary."""
+    """The dense inverse rides checkpoints and the planes boundary."""
     from qmg_tpu.tpu_compat import (make_planes_solver, host_to_planes,
                                     from_planes)
     op, mg, b = _mk(direct=True)

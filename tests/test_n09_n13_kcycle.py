@@ -154,7 +154,7 @@ def test_wilson_kcycle_beats_unpreconditioned(cfg_dir):
 @pytest.mark.slow
 def test_iter_pin_256sq(cfg_dir):
     """The reference's LARGEST shipped fixture (l256t256b60_heatbath.dat)
-    enters the regression ladder (VERDICT r2 item 6): plaquette check +
+    enters the regression ladder: plaquette check +
     pinned outer iteration count."""
     lat0 = Lattice2D(256, 256, 2)
     g = u1.read_gauge_u1(lat0,
@@ -167,8 +167,8 @@ def test_iter_pin_256sq(cfg_dir):
 
 
 def test_kcycle_outer_trajectory_dense_oracle():
-    """External trajectory anchor for the iteration pins (VERDICT r3
-    item 6): the 18/19/20 outer-FGCR pins elsewhere in this file are
+    """External trajectory anchor for the iteration pins: the 18/19/20
+    outer-FGCR pins elsewhere in this file are
     internal regression anchors; here the SOLVER PLUMBING itself is
     verified against dense linear algebra, independent of any pinned
     count. At 16^2 on an interacting gauss gauge, the fine Wilson

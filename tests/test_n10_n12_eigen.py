@@ -142,8 +142,8 @@ def test_arnoldi_iterative_path_smallest_magnitude(monkeypatch):
 def test_shift_invert_smallest_magnitude():
     """Shift-invert Arnoldi nails the smallest-|lambda| Wilson spectrum
     at the DEFAULT subspace size, where plain Arnoldi at 32^2 needs
-    ncv=64 and hundreds of restarts (TPU-native extra beyond the
-    reference's regular-mode ARPACK)."""
+    ncv=64 and hundreds of restarts (an extra beyond the reference's
+    regular-mode ARPACK)."""
     lat = Lattice2D(32, 32, 2)
     rng = QMGRandom(1337)
     g = u1.gauss_gauge_u1(lat, rng, beta=6.0)
@@ -173,7 +173,7 @@ def test_shift_invert_with_mg_inner_solve():
     """The production composition: the MG K-cycle planes solver as the
     shift-invert inner operator, traced INSIDE the jitted Arnoldi sweep
     (one compiled program = Arnoldi step + full MG solve). c64
-    throughout - the TPU-shaped path for computing deflation-grade low
+    throughout - the device path for computing deflation-grade low
     modes at sizes where dense/plain-Arnoldi are infeasible."""
     from qmg_tpu.setup import KCycleConfig, build_kcycle_hierarchy
     from qmg_tpu.tpu_compat import make_planes_solver, to_planes, \

@@ -61,7 +61,7 @@ def test_schur_kcycle_direct_coarsest():
     as well as the tol-0.2 iterative one, and the reconstruction must
     hit the same outer contract. This is what lets the n19
     configuration use the one-matmul coarsest (and the fixed-schedule
-    batched path) on the TPU.
+    batched path) on the device.
     """
     lat0 = Lattice2D(L, L, 2)
     rng = QMGRandom(1337)

@@ -1,11 +1,11 @@
 """Mixed-precision iterative refinement to the fp64 1e-10 contract.
 
 The reference's flagship solve is FGCR to tol 1e-10 at double precision
-(tests/n13_wilson_kcycle/wilson_kcycle.cpp:104-106); the TPU computes in
-complex64. refine.refine_solve wraps the c64 MG planes solve in a
-host-fp64 defect-correction loop - these tests run the c64 inner solve
-on CPU (the same numerics the TPU executes) and check the TRUE fp64
-residual, per VERDICT r2 item 2.
+(tests/n13_wilson_kcycle/wilson_kcycle.cpp:104-106); the planes solver
+computes in complex64. refine.refine_solve wraps the c64 MG planes solve
+in a host-fp64 defect-correction loop - these tests run the c64 inner
+solve on CPU (the same numerics the device executes) and check the TRUE fp64
+residual.
 """
 
 import os
@@ -64,7 +64,7 @@ def _refined_problem(L, mass, n_refine, cfg_dir=None, direct=True):
             lat0, os.path.join(cfg_dir, f"l{L}t{L}b60_heatbath.dat")))
     # The c64 hierarchy IS the device numerics; the fp64 host operator is
     # built from the same (c64-quantized) gauge so the two agree on what
-    # "the operator" is - exactly the TPU situation, where the c64 links
+    # "the operator" is - exactly the device situation, where the c64 links
     # are the uploaded truth.
     g64 = g.astype(np.complex64)
     op = Wilson2D(lat0, mass, jnp.asarray(g64), dtype=jnp.complex64)
@@ -110,7 +110,7 @@ def test_refine_inner_floor_detected():
 
 @pytest.mark.slow
 def test_refine_reaches_1e10_128sq(cfg_dir):
-    """VERDICT r2 item 2 done-criterion: a planes-boundary solve at
+    """a planes-boundary solve at
     >= 128^2 reaching TRUE fp64 residual < 1e-10 (c64 inner emulated on
     CPU), on the shipped beta=6 config."""
     mg, b = _refined_problem(128, -0.075, 3, cfg_dir=cfg_dir)

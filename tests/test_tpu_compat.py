@@ -4,7 +4,6 @@ planes solver (backend-agnostic; exercised here on CPU)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
 from qmg_tpu.lattice import Lattice2D
 from qmg_tpu.operators import Wilson2D
@@ -54,94 +53,6 @@ def test_planes_mg_solver_matches_complex_path():
     assert int(res2.iters) == int(ref.iters)
 
 
-def test_planes_solver_pallas_fine_interpret():
-    """use_pallas_fine plumbing: the fused kernel replaces the fine-level
-    ORIGINAL apply inside the whole-solver jit (interpret mode, tiny
-    iteration budget - the full numeric equivalence is covered by the
-    kernel tests; this checks the integration path end-to-end)."""
-    from qmg_tpu.setup import KCycleConfig, build_kcycle_hierarchy
-    lat = Lattice2D(16, 16, 2)
-    rng = QMGRandom(1337)
-    g = jnp.asarray(u1.unit_gauge_u1(lat), jnp.complex64)
-    op = Wilson2D(lat, 0.1, g, dtype=jnp.complex64)
-    cfg = KCycleConfig(n_refine=1, coarse_dof=2, free_null_vectors=True,
-                       inner_max_iter=2, coarsest_max_iter=2,
-                       n_pre_smooth=1, n_post_smooth=1)
-    mg = build_kcycle_hierarchy(lat, op, cfg, rng)
-    b = np.asarray(rng.gaussian_cv(lat))
-    sp0, st0 = make_planes_solver(mg, tol=1e-3, max_iter=3)
-    sp1, st1 = make_planes_solver(mg, tol=1e-3, max_iter=3,
-                                  use_pallas_fine=True, pallas_tile=8,
-                                  pallas_interpret=True)
-    bp = host_to_planes(b)
-    x0, i0, r0 = sp0(st0, bp)
-    x1, i1, r1 = sp1(st1, bp)
-    assert int(i0) == int(i1)
-    d = float(np.max(np.abs(np.asarray(x0) - np.asarray(x1))))
-    scale = float(np.max(np.abs(np.asarray(x0))))
-    assert d < 5e-5 * max(scale, 1.0), f"diff {d} scale {scale}"
-    # override restored after tracing
-    assert mg.get_stencil(0).apply_override is None
-
-
-def test_planes_solver_bf16_preconditioner_interpret():
-    """Mixed precision: bf16 coefficient streams inside the K-cycle
-    preconditioner, exact outer operator - converges to the same
-    tolerance (FGCR absorbs preconditioner error)."""
-    from qmg_tpu.setup import KCycleConfig, build_kcycle_hierarchy
-    lat = Lattice2D(16, 16, 2)
-    rng = QMGRandom(1337)
-    g = jnp.asarray(u1.unit_gauge_u1(lat), jnp.complex64)
-    op = Wilson2D(lat, 0.1, g, dtype=jnp.complex64)
-    cfg = KCycleConfig(n_refine=1, coarse_dof=2, free_null_vectors=True,
-                       inner_max_iter=2, coarsest_max_iter=4,
-                       n_pre_smooth=1, n_post_smooth=1)
-    mg = build_kcycle_hierarchy(lat, op, cfg, rng)
-    b = np.asarray(rng.gaussian_cv(lat))
-    sp, st = make_planes_solver(mg, tol=1e-4, max_iter=40,
-                                use_pallas_fine=True, pallas_tile=16,
-                                pallas_interpret=True,
-                                pallas_coeff_dtype=jnp.bfloat16)
-    x_p, iters, res_sq = sp(st, host_to_planes(b))
-    x = from_planes(x_p)
-    from qmg_tpu.linalg import norm2sq
-    bj = jnp.asarray(b, jnp.complex64)
-    resid = float(jnp.sqrt(norm2sq(bj - op.apply_M(x)) / norm2sq(bj)))
-    assert resid < 1e-3, f"resid {resid}, iters {int(iters)}"
-    assert mg.get_stencil(0).apply_override is None
-
-
-def test_planes_solver_wilson_phase_kernel_interpret():
-    """pallas_kind='wilson-phase': the phase-streaming kernel drives the
-    fine level inside the K-cycle; same convergence as the exact path."""
-    from qmg_tpu.setup import KCycleConfig, build_kcycle_hierarchy
-    lat = Lattice2D(16, 16, 2)
-    rng = QMGRandom(1337)
-    g = jnp.asarray(u1.gauss_gauge_u1(lat, rng, beta=6.0), jnp.complex64)
-    op = Wilson2D(lat, -0.05, g, dtype=jnp.complex64)
-    cfg = KCycleConfig(n_refine=1, coarse_dof=2, free_null_vectors=True,
-                       inner_max_iter=2, coarsest_max_iter=4,
-                       n_pre_smooth=1, n_post_smooth=1)
-    mg = build_kcycle_hierarchy(lat, op, cfg, rng)
-    b = np.asarray(rng.gaussian_cv(lat))
-    sp, st = make_planes_solver(mg, tol=1e-4, max_iter=40,
-                                use_pallas_fine=True, pallas_tile=8,
-                                pallas_interpret=True,
-                                pallas_kind="wilson-phase")
-    x_p, iters, res_sq = sp(st, host_to_planes(b))
-    x = from_planes(x_p)
-    from qmg_tpu.linalg import norm2sq
-    bj = jnp.asarray(b, jnp.complex64)
-    resid = float(jnp.sqrt(norm2sq(bj - op.apply_M(x)) / norm2sq(bj)))
-    assert resid < 1e-3, f"resid {resid}"
-    # misuse: bf16 coefficients belong to the matrix kernel
-    import pytest as _pytest
-    with _pytest.raises(ValueError, match="matrix kernel"):
-        make_planes_solver(mg, use_pallas_fine=True,
-                           pallas_kind="wilson-phase",
-                           pallas_coeff_dtype=jnp.bfloat16)
-
-
 def test_planes_solver_schur_outer():
     """outer_type=RIGHT_SCHUR (n19 config) through the planes boundary:
     prepare/reconstruct run inside the jit, full-space x comes back."""
@@ -165,31 +76,6 @@ def test_planes_solver_schur_outer():
     bj = jnp.asarray(b, jnp.complex64)
     resid = float(jnp.sqrt(norm2sq(bj - op.apply_M(x)) / norm2sq(bj)))
     assert resid < 1e-4, f"resid {resid}"
-
-
-def test_planes_solver_wilson_r1_kernel_interpret():
-    """pallas_kind='wilson-r1': the rank-1 phase kernel drives the fine
-    level inside the K-cycle; same convergence as the exact path."""
-    from qmg_tpu.setup import KCycleConfig, build_kcycle_hierarchy
-    lat = Lattice2D(16, 16, 2)
-    rng = QMGRandom(1337)
-    g = jnp.asarray(u1.gauss_gauge_u1(lat, rng, beta=6.0), jnp.complex64)
-    op = Wilson2D(lat, -0.05, g, dtype=jnp.complex64)
-    cfg = KCycleConfig(n_refine=1, coarse_dof=2, free_null_vectors=True,
-                       inner_max_iter=2, coarsest_max_iter=4,
-                       n_pre_smooth=1, n_post_smooth=1)
-    mg = build_kcycle_hierarchy(lat, op, cfg, rng)
-    b = np.asarray(rng.gaussian_cv(lat))
-    sp, st = make_planes_solver(mg, tol=1e-4, max_iter=40,
-                                use_pallas_fine=True, pallas_tile=8,
-                                pallas_interpret=True,
-                                pallas_kind="wilson-r1")
-    x_p, iters, res_sq = sp(st, host_to_planes(b))
-    x = from_planes(x_p)
-    from qmg_tpu.linalg import norm2sq
-    bj = jnp.asarray(b, jnp.complex64)
-    resid = float(jnp.sqrt(norm2sq(bj - op.apply_M(x)) / norm2sq(bj)))
-    assert resid < 1e-3, f"resid {resid}"
 
 
 def test_planes_solver_gather_coarse_apply():
@@ -252,8 +138,3 @@ def test_planes_solver_on_mesh():
     assert int(itm) == int(it0)
     np.testing.assert_allclose(np.asarray(xm_p), np.asarray(x0_p),
                                atol=2e-5)
-    import pytest as _pytest
-    # mesh + pallas composes only through the sharded wilson-r1 kernel;
-    # other kernel kinds stay single-chip.
-    with _pytest.raises(ValueError, match="wilson-r1"):
-        make_planes_solver(mg, use_pallas_fine=True, mesh=mesh)
